@@ -172,7 +172,7 @@ class LazyAffinePoint(AffinePoint):
     Carries a thunk (typically: decode an in-flight device MSM result) and
     forces it only when x/y/is_inf are first read — equality, group ops,
     transcript absorption all inherit from AffinePoint and force
-    transparently.  This is the per-step overlap lever (VERDICT r4 item 3):
+    transparently.  This is the per-step overlap lever:
     the SPS witness commitment's device MSM is dispatched at trace
     generation but its host sync slides to the NEXT phase's transcript
     absorption, after the cross-term evaluation and MSMs have been

@@ -1,6 +1,6 @@
 """Host-side (CPU, Python-int) prime field elements.
 
-This is the golden reference implementation the TPU limb kernels are tested
+This is the golden reference implementation the device limb kernels are tested
 against, and the workhorse for the sequential protocol layer (transcripts,
 circuit synthesis bookkeeping).  Field elements are immutable wrappers over
 Python ints; each modulus gets its own class via :func:`field`.

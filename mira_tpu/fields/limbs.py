@@ -1,19 +1,19 @@
-"""TPU-native vectorized prime-field arithmetic on 16-bit limb planes.
+"""Vectorized prime-field arithmetic on 16-bit limb planes.
 
-Design (TPU-first, see SURVEY.md §7): a field element is 16 little-endian
-16-bit limbs stored in a uint32 array of shape ``(..., 16)``; elements are kept
-in Montgomery form (R = 2^256) on device.  All kernels are branch-free,
+Design (see SURVEY.md §7): a field element is 16 little-endian 16-bit limbs
+stored in a uint32 array of shape ``(..., 16)``; elements are kept in
+Montgomery form (R = 2^256) on device.  All kernels are branch-free,
 shape-static and jit/vmap/shard_map friendly:
 
-* 16x16-bit partial products fit exactly in uint32 (no 64-bit ints on TPU);
+* 16x16-bit partial products fit exactly in uint32 (no 64-bit products);
 * multiplication is CIOS Montgomery with lazy per-column accumulation — the
   column magnitude stays < 2^23 so carries are deferred to one final ripple;
 * comparisons/selects are mask arithmetic, never data-dependent control flow.
 
 This replaces the reference's 64-bit-limb Rust field arithmetic (halo2curves,
 consumed via e.g. /root/reference/src/commitment.rs:78-87 and the row-parallel
-gate evaluation /root/reference/src/plonk/mod.rs:461-530) with a layout the
-VPU can chew through 128 lanes at a time.
+gate evaluation /root/reference/src/plonk/mod.rs:461-530) with a layout that
+vectorizes over every element of an array.
 """
 
 from __future__ import annotations
@@ -24,16 +24,19 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..routes import route
+
 LIMB_BITS = 16
 NUM_LIMBS = 16
 MASK = (1 << LIMB_BITS) - 1
 
 
 def _native_encode_min() -> int:
-    """Batch size above which CPU-host Montgomery encodes route to the
-    native 4x64 kernel instead of XLA:CPU.  MIRA_NATIVE_ENCODE_MIN=1 forces
-    native for everything — the multichip dryrun uses it to avoid one-off
-    XLA:CPU compiles for host-side reference values."""
+    """Batch size above which Montgomery encodes on the native encode route
+    (routes.py; the CPU) run on the native 4x64 kernel instead of XLA:CPU.
+    MIRA_NATIVE_ENCODE_MIN=1 forces native for everything — the multichip
+    dryrun uses it to avoid one-off XLA:CPU compiles for host-side
+    reference values."""
     import os
 
     return int(os.environ.get("MIRA_NATIVE_ENCODE_MIN", "4096"))
@@ -171,18 +174,16 @@ class LimbField:
 
         The to-Montgomery multiply runs on device (one fused CIOS by R^2)
         instead of one Python bigint mul+mod per value — the host loop was
-        ~80s/fold on SnarkStar witness vectors.  On CPU hosts the multiply
-        runs on the native 4x64 kernel (fields/native64.py) instead of the
-        XLA:CPU 16-bit-limb CIOS."""
+        dominant host cost on SnarkStar witness vectors.  On the native
+        encode route the multiply runs on the native 4x64 kernel
+        (fields/native64.py) instead of the XLA:CPU 16-bit-limb CIOS."""
         m = self.modulus
         vals = [v if isinstance(v, int) else v.v for v in vals]
         raw16 = ints_to_limbs([v if 0 <= v < m else v % m for v in vals])
         if raw16.shape[0] == 0:
             return jnp.asarray(raw16, dtype=jnp.uint32)
         if len(vals) >= _native_encode_min():
-            import jax
-
-            if jax.default_backend() == "cpu":
+            if route("encode") == "native":
                 try:
                     from .native64 import (
                         available,
@@ -208,9 +209,7 @@ class LimbField:
             return jnp.asarray(raw16, dtype=jnp.uint32)
         m = self.modulus
         if raw16.shape[0] >= _native_encode_min():
-            import jax
-
-            if jax.default_backend() == "cpu":
+            if route("encode") == "native":
                 try:
                     from .native64 import available, to_mont16
 
@@ -245,14 +244,13 @@ class LimbField:
         """Montgomery limb array -> Python ints (canonical).
 
         From-Montgomery = one device CIOS by plain 1 (vR * 1 * R^-1 = v);
-        on CPU hosts large batches route to the native 4x64 kernel."""
+        on the native encode route large batches run on the native 4x64
+        kernel."""
         arr = jnp.asarray(arr).reshape(-1, NUM_LIMBS)
         if arr.shape[0] == 0:
             return []
         if arr.shape[0] >= _native_encode_min():
-            import jax
-
-            if jax.default_backend() == "cpu":
+            if route("encode") == "native":
                 try:
                     from .native64 import available, from_mont16
 

@@ -3,7 +3,7 @@
 The reference only persists the commitment-key cache
 (/root/reference/src/commitment.rs:96-167); IVC state is never checkpointed,
 so a crashed multi-hour fold restarts from step 0 (SURVEY.md §5 flags
-accumulator checkpointing as a required addition for long TPU folds).
+accumulator checkpointing as a required addition for long folds).
 `save(ivc, path)` / `load(ivc_like, path)` persist the full prover state —
 both relaxed traces, the pending secondary trace, z values, and step —
 as one .npz: instances as int arrays, witnesses as raw Montgomery uint32

@@ -333,7 +333,7 @@ class IVC:
         debug_mode: bool = False,
     ) -> "IVC":
         """Construct an IVC directly from a checkpoint WITHOUT re-running the
-        zero step (VERDICT r1 weak 6: `load_checkpoint` previously required a
+        zero step (`load_checkpoint` alone requires a
         full `IVC(...)` — i.e. both zero-step syntheses and SPS traces,
         minutes of work — before restoring over it).  `pp` and the circuits
         must match the ones the checkpoint was saved under (the restored

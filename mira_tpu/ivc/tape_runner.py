@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, List, Optional
 
+from ..routes import route
 from ..table.circuit import ConstraintSystem, RegionCtx, TableData
 from ..table.tape import Tape
 from .step_folding_circuit import StepFoldingCircuit, StepInputs
@@ -222,12 +223,7 @@ def replay_sfc(
         )
 
         if tape_vm_available():
-            dev = os.environ.get("MIRA_DEVICE_WITNESS", "auto")
-            if dev == "auto":
-                import jax
-
-                dev = "1" if jax.default_backend() != "cpu" else "0"
-            if dev == "1":
+            if route("witness") == "device":
                 return _replay_device(captured, inputs)
             if os.environ.get("MIRA_PACKED_WITNESS", "1") == "1":
                 return _replay_packed(captured, inputs)
@@ -287,7 +283,7 @@ def _replay_device(
         combined = np.concatenate([dyn_pos, static_pos])
         # scatter/delta need each position once; keep the LAST write per
         # cell (matches the sequential host-scatter semantics), then order
-        # by position — sorted unique indices let XLA:TPU vectorize the
+        # by position — sorted unique indices let XLA vectorize the
         # scatter (indices_are_sorted/unique_indices in encode_mont)
         _, keep = np.unique(combined[::-1], return_index=True)
         keep = len(combined) - 1 - keep  # last-occurrence indices

@@ -1,7 +1,7 @@
 """ProtoGalaxy: multi-instance folding via polynomial interpolation
 (reference /root/reference/src/nifs/protogalaxy/).
 
-TPU-first divergences from the reference's sequential tree_reduce:
+Vectorized divergences from the reference's sequential tree_reduce:
 * gate evaluations come from the column evaluator (one fused program per
   gate over all rows);
 * the pow_i binary tree (compute_F / compute_G) is a vectorized halving

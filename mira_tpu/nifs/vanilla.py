@@ -4,7 +4,7 @@ Protocol semantics mirror /root/reference/src/nifs/vanilla/mod.rs (challenge
 absorb order generate_challenge:144-159, fold orchestration prove:220-251,
 verifier:270-292).
 
-TPU-first divergence (cross terms): the reference symbolically expands the
+Divergence (cross terms): the reference symbolically expands the
 homogeneous polynomial into degree slices (GroupedPoly) and interprets each
 slice per row (vanilla/mod.rs:101-120).  We instead evaluate the *compact*
 homogeneous polynomial at d+1 fold points r = 0..d on RLC-folded
@@ -44,8 +44,8 @@ from ..plonk.structure import (
     RelaxedPlonkWitness,
     sps_verify,
 )
+from ..routes import route
 from ..utils.tracing import instrument, span
-from ..polynomial.evaluator import ColumnEvaluator
 
 
 @lru_cache(maxsize=None)
@@ -152,26 +152,6 @@ def _combine_slices_jit(p: int, d: int):
     return jax.jit(run)
 
 
-def fold_eval_est_bytes(S: PlonkStructure, d: int) -> int:
-    """Cheap estimate of the Pallas fold evaluator's ADDITIONAL HBM residency
-    at structure S with fold degree d, WITHOUT building the evaluator
-    (building it would allocate the very static stack the estimate guards
-    against).  ncols ~= static queried columns (selectors + fixed) + the two
-    instances' stacked advice copies + outputs/transients; 64 B per row per
-    column (16 uint32 limbs).  The input witness vectors are excluded — they
-    are resident whichever evaluator backend runs.  tests/test_nifs.py pins
-    this against PallasFoldEvaluator.resident_bytes (the query-exact model)
-    to ±25% so evaluator drift can't silently flip the auto-fallback."""
-    nrow = 1 << S.k
-    ncols = (len(S.selectors) + len(S.fixed_columns)
-             + sum(S.round_sizes) // max(nrow, 1) + d + 2)
-    return nrow * 64 * ncols
-
-
-def fold_eval_est_mb(S: PlonkStructure, d: int) -> int:
-    return fold_eval_est_bytes(S, d) >> 20
-
-
 def _debug_check_assume_sat(S: PlonkStructure, W1, W2, ch1, ch2):
     """MIRA_DEBUG_SAT guard for the `assume_sat` cross-term shortcut.
 
@@ -235,11 +215,9 @@ class VanillaFS:
         rng=None,
         assume_sat: bool = True,
         mesh=None,
-        _impl: str | None = None,
     ):
         rng = rng or random.Random(0xC405)
         p = S.modulus
-        lf = S.lf
         d = S.get_degree_for_folding() - 1  # max degree of the homogeneous poly
 
         ch1 = list(U1.challenges) + [U1.u]
@@ -279,34 +257,9 @@ class VanillaFS:
             W1_W = [put(w) for w in W1_W]
             W2_W = [put(w) for w in W2_W]
             W1_E = put(W1_E)
-            # the Pallas sweep and the native row VM are single-device
-            # programs; the GSPMD-partitionable column evaluator is the
-            # multi-chip path
-            impl = "xla"
-        else:
-            impl = _impl or os.environ.get("MIRA_FOLD_EVAL")
-        if impl is None:
-            # fused Pallas sweep on TPU (all fold points in one pass over
-            # the witness columns); native C++ row VM on CPU hosts
-            if jax.default_backend() != "cpu":
-                # The Pallas evaluator keeps a pre-rotated Montgomery stack
-                # of every queried static column plus the advice/output
-                # stacks RESIDENT in HBM (~64 B x rows x columns); at
-                # TensorStar's k=22 that is >10 GB and OOMs the 16 GB chip
-                # (measured round 4).  Estimate and fall back to the native
-                # row VM past a budget — commits still ride the device.
-                est_mb = fold_eval_est_mb(S, d)
-                budget = int(os.environ.get("MIRA_FOLD_EVAL_HBM_MB", "6000"))
-                if est_mb <= budget:
-                    impl = "pallas"
-                else:
-                    from ..polynomial.native_evaluator import available
-
-                    impl = "native" if available() else "xla"
-            else:
-                from ..polynomial.native_evaluator import available
-
-                impl = "native" if available() else "xla"
+        # over a mesh the device evaluator, which GSPMD partitions by rows
+        # (the row VM would gather the shards to the host)
+        impl = "jnp" if mesh is not None else route("fold_eval")
         if impl == "native" and js:
             # native row-VM eval + native inverse-Vandermonde combine,
             # entirely in 4x64 limbs (one 16-limb conversion at the end)
@@ -348,46 +301,13 @@ class VanillaFS:
                     jnp.asarray(limbs64_to_16(T64[k])) for k in range(d)
                 ]
         else:
-            if impl == "pallas" and js:
-                pev = S._pallas_fold_evaluator()
-                try:
-                    with span("cross_term_eval"):
-                        outs = pev.fold_eval_multi(W1_W, W2_W, js, ch1, ch2)
-                    evals = [outs[i] for i in range(len(js))]
-                except Exception as e:  # noqa: BLE001
-                    # The static estimate passed the budget but the SHARED
-                    # chip's actual free HBM did not (measured: SnarkStar
-                    # k=20 — residents at that scale leave less headroom
-                    # than the evaluator's own footprint).  Self-heal onto
-                    # the native row VM instead of failing the fold.
-                    if "RESOURCE_EXHAUSTED" not in str(e):
-                        raise
-                    from ..polynomial.native_evaluator import available
-
-                    if not available():
-                        raise
-                    import sys
-
-                    print(
-                        "fold evaluator RESOURCE_EXHAUSTED on device; "
-                        "falling back to the native row VM",
-                        file=sys.stderr,
+            evals = []
+            if js:
+                with span("cross_term_eval"):
+                    outs = S._fold_evaluator().fold_eval_multi(
+                        W1_W, W2_W, js, ch1, ch2, mesh=mesh
                     )
-                    return VanillaFS.commit_cross_terms(
-                        ck, S, U1, W1, U2, W2, rng=rng,
-                        assume_sat=assume_sat, mesh=mesh, _impl="native",
-                    )
-            else:
-                ev = S._evaluator("homogeneous")
-
-                def eval_at(j):
-                    jm = lf.const(j, (1,))
-                    chj = [(a + j * b) % p for a, b in zip(ch1, ch2)]
-                    chj_enc = lf.encode(chj) if chj else lf.zero((0,))
-                    return ev.fold_eval(W1_W, W2_W, jm, chj_enc)
-
-                evals = [eval_at(j) for j in js]
-
+                evals = [outs[i] for i in range(len(js))]
             if assume_sat and d >= 1:
                 cross_terms = list(
                     _combine_slices_sat_jit(p, d)(tuple(evals), W1_E)
@@ -404,7 +324,7 @@ class VanillaFS:
             if commit_many is not None:
                 # two-phase: dispatch the MSMs now, decode AFTER the host
                 # has produced the Gt cross terms below — the pairings run
-                # while the device works (VERDICT r4 item 3 overlap)
+                # while the device works
                 decode = commit_many(terms, mesh=mesh, defer=True)
             else:
                 pts = [ck.commit_device(t, mesh=mesh) for t in terms]

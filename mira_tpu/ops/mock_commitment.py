@@ -49,7 +49,7 @@ class MockCommitmentKey:
         just commit the scattered full witness."""
         return self.commit_device(dw.encode_mont(dw.lf))
 
-    def commit_device(self, witness_mont, mesh=None, allow_fb=True) -> AffinePoint:
+    def commit_device(self, witness_mont, mesh=None) -> AffinePoint:
         r = self.curve.scalar_modulus
         try:
             from ..fields.native64 import (

@@ -1,16 +1,17 @@
-"""Multi-scalar multiplication on TPU.
+"""Device multi-scalar multiplication.
 
-Round-1 design notes (vs the reference's Pippenger `best_multiexp`,
-/root/reference/src/commitment.rs:78-87): a TPU MSM must avoid
-data-dependent scatter.  We use a lane-parallel double-and-add — every point
-lane runs MSB-first double-and-add on its own scalar (1 double + 1 masked
-add per bit over all lanes, a single small fori_loop body for XLA), then a
-masked halving tree folds the N partial results.  This is fully SIMD, has a
-compile-size independent of N, and is within ~10x of Pippenger work; the
-bucketized Pallas kernel replaces it in a later round.
+`msm_device` takes the platform's device route (routes.py): the CUDA bucket
+Pippenger (ops/cuda_msm.py) or the plain XLA lane MSM below.
 
-Multi-chip: see mira_tpu/parallel/msm (shard points across the mesh, psum
-the per-shard partial sums).
+The lane MSM (vs the reference's Pippenger `best_multiexp`,
+/root/reference/src/commitment.rs:78-87) avoids data-dependent scatter:
+every point lane runs MSB-first double-and-add on its own scalar (1 double +
+1 masked add per bit over all lanes, a single small fori_loop body for XLA),
+then a masked halving tree folds the N partial results.  It is fully SIMD
+and its compile size is independent of N, at about 10x Pippenger's work.
+
+Multi-device: see mira_tpu/parallel/msm (shard points across the mesh,
+combine the per-shard partial sums).
 """
 
 from __future__ import annotations
@@ -19,11 +20,10 @@ from functools import lru_cache
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..curves.host import AffinePoint, CurveParams
-from ..curves.jax_curve import JacobianOps, jacobian_ops
-from ..fields.limbs import LIMB_BITS, NUM_LIMBS, ints_to_limbs, limb_field
+from ..curves.jax_curve import jacobian_ops
+from ..fields.limbs import LIMB_BITS, NUM_LIMBS, ints_to_limbs
 
 
 def encode_scalars(values, scalar_modulus: int) -> jnp.ndarray:
@@ -80,46 +80,27 @@ def _msm_jit(curve_name: str, num_bits: int):
     return jax.jit(run)
 
 
-@lru_cache(maxsize=None)
-def _reduce_level_jit(curve_name: str, half: int):
-    """One halving level: add lanes [0,half) to lanes [half,2*half) by static
-    slicing (gathers serialize on TPU; slices are free relayouts).  Compiled
-    once per (curve, half); a full reduction chains log2(n) of these."""
-    ops = jacobian_ops(curve_name)
-
-    def run(X, Y, Z):
-        a = (X[:half], Y[:half], Z[:half])
-        b = (X[half:], Y[half:], Z[half:])
-        return ops.add(a, b)
-
-    return jax.jit(run)
-
-
-def reduce_points(lanes, curve: CurveParams):
-    """Sum a (N, 16) Jacobian lane triple into one point (device)."""
-    ops = jacobian_ops(curve.name)
-    n = lanes[0].shape[0]
-    log_n = max((n - 1).bit_length(), 1)
-    pad = (1 << log_n) - n
-    if pad:
-        ident = ops.identity((pad,))
-        lanes = tuple(
-            jnp.concatenate([c, jnp.broadcast_to(ic, (pad, NUM_LIMBS))])
-            for c, ic in zip(lanes, ident)
-        )
-    half = (1 << log_n) // 2
-    while half >= 1:
-        lanes = _reduce_level_jit(curve.name, half)(*lanes)
-        half //= 2
-    return tuple(c[0] for c in lanes)
-
-
 def msm(scalars, points, curve: CurveParams):
     """Device MSM: scalars (N,16) plain limbs, points (X,Y,Z) Montgomery limb
     arrays; returns a Jacobian triple of (16,) arrays."""
     num_bits = curve.scalar_modulus.bit_length()
     X, Y, Z = points
     return _msm_jit(curve.name, num_bits)(scalars, X, Y, Z)
+
+
+def msm_device(scalars, points, curve: CurveParams):
+    """MSM on the platform's device route; same operands and result as
+    `msm`.  Points must be affine (Z = 1) or identities (Z = 0)."""
+    from ..routes import route
+
+    impl = route("msm")
+    if impl == "cuda":
+        from .cuda_msm import msm_cuda
+
+        return msm_cuda(scalars, points, curve)
+    if impl == "xla":
+        return msm(scalars, points, curve)
+    raise ValueError(f"msm route {impl!r} has no device MSM")
 
 
 def msm_from_host(scalar_vals, affine_points, curve: CurveParams) -> AffinePoint:

@@ -1,11 +1,11 @@
 """Radix-2 NTT over limb-decomposed field arrays.
 
-TPU-first formulation of the reference FFT (/root/reference/src/fft.rs):
+Vectorized formulation of the reference FFT (/root/reference/src/fft.rs):
 instead of the reference's recursive rayon butterflies, each of the log2(n)
 stages is one fused vectorized butterfly over the whole array — rotations and
 pairings are static reshapes, twiddles are a precomputed Montgomery-form
-table, so XLA sees log2(n) large elementwise kernels (VPU-bound, no
-data-dependent control flow).
+table, so XLA sees log2(n) large elementwise kernels (no data-dependent
+control flow).
 
 Semantics (bit-reversal, twiddle order, ifft divisor, coset zeta powers)
 mirror /root/reference/src/fft.rs:51-226; the known-answer vector at
@@ -20,8 +20,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..fields.limbs import NUM_LIMBS, LimbField, ints_to_limbs, limb_field
+from ..fields.limbs import NUM_LIMBS, limb_field
 from ..fields.params import field_params
+from ..routes import route
 
 
 def _bitrev_perm(log_n: int) -> np.ndarray:
@@ -62,9 +63,8 @@ def _twiddle_table(modulus: int, log_n: int, inverse: bool):
 def _ntt_jit(modulus: int, log_n: int, inverse: bool):
     """One jitted program per size.  Stages are RESHAPE butterflies — a
     (n/2h, 2, h) view with a strided-slice twiddle row — rather than iota
-    gathers: XLA:TPU lowers reshapes/strided slices to cheap relayouts while
-    per-element gathers serialize (measured ~19x on one v5e at 2^20).  The
-    graph is log_n unrolled stages; each is one fused CIOS mul + adds."""
+    gathers, so no stage needs a data-dependent gather.  The graph is log_n
+    unrolled stages; each is one fused CIOS mul + adds."""
     lf = limb_field(modulus)
     n = 1 << log_n
     tw_table, perm = _twiddle_table(modulus, log_n, inverse)
@@ -89,433 +89,20 @@ def _ntt_jit(modulus: int, log_n: int, inverse: bool):
     return jax.jit(run)
 
 
-@lru_cache(maxsize=None)
-def _butterfly_pallas(modulus: int, block: int, interpret: bool):
-    """Fused butterfly stage: (u, v, tw) -> (u + tw*v, u - tw*v) in one
-    Pallas kernel on limbs-major (16, n/2) arrays.  The XLA version runs the
-    same math as dozens of separate HBM passes; fusing the CIOS mul and the
-    add/sub into one VMEM-resident kernel makes each stage one read + one
-    write of the data."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from .pallas_field import tfield
-
-    tf = tfield(modulus, interpret)
-
-    def kernel(u_ref, v_ref, t_ref, a_ref, b_ref):
-        u, v, tw = u_ref[...], v_ref[...], t_ref[...]
-        prod = tf.mul(v, tw)
-        a_ref[...] = tf.add(u, prod)
-        b_ref[...] = tf.sub(u, prod)
-
-    def run(u, v, tw):
-        m = u.shape[1]
-        grid = (m // block,)
-        spec = pl.BlockSpec((NUM_LIMBS, block), lambda i: (0, i),
-                            memory_space=pltpu.VMEM)
-        out_shape = [
-            jax.ShapeDtypeStruct((NUM_LIMBS, m), jnp.uint32) for _ in range(2)
-        ]
-        return pl.pallas_call(
-            kernel,
-            out_shape=out_shape,
-            grid=grid,
-            in_specs=[spec] * 3,
-            out_specs=[spec] * 2,
-            interpret=interpret,
-        )(u, v, tw)
-
-    return run
-
-
-@lru_cache(maxsize=None)
-def _ntt_pallas_jit(modulus: int, log_n: int, inverse: bool, block: int,
-                    interpret: bool):
-    """Pallas-stage NTT: pairing stays XLA reshapes (cheap relayouts), the
-    per-stage field math is one fused kernel (see _butterfly_pallas)."""
-    lf = limb_field(modulus)
-    n = 1 << log_n
-    tw_table, perm = _twiddle_table(modulus, log_n, inverse)
-    tw_t = tw_table.T  # (16, n/2) limbs-major
-    stage = _butterfly_pallas(modulus, block, interpret)
-
-    def run(a):
-        a = a[perm].T  # (16, n) limbs-major
-        for s in range(log_n):
-            half = 1 << s
-            step = n // (2 * half)
-            x = a.reshape(NUM_LIMBS, n // (2 * half), 2, half)
-            u = x[:, :, 0, :].reshape(NUM_LIMBS, n // 2)
-            v = x[:, :, 1, :].reshape(NUM_LIMBS, n // 2)
-            tw = jax.lax.slice_in_dim(tw_t, 0, n // 2, stride=step, axis=1)
-            tw = jnp.broadcast_to(
-                tw[:, None, :], (NUM_LIMBS, n // (2 * half), half)
-            ).reshape(NUM_LIMBS, n // 2)
-            ap, bp = stage(u, v, tw)
-            a = jnp.stack([ap.reshape(NUM_LIMBS, n // (2 * half), half),
-                           bp.reshape(NUM_LIMBS, n // (2 * half), half)],
-                          axis=2).reshape(NUM_LIMBS, n)
-        a = a.T
-        if inverse:
-            divisor = pow(n, -1, modulus)
-            a = lf.mul(a, lf.const(divisor, (1,)))
-        return a
-
-    return jax.jit(run)
-
-
-@lru_cache(maxsize=None)
-def _fourstep_consts(modulus: int, log_n: int, inverse: bool):
-    """Device constants for the four-step NTT: per-stage DIF/DIT twiddle
-    tables for the two sub-NTTs and the (n2, n1) mid twiddle matrix
-    w^(i1*k2) with its k2 axis pre-bit-reversed to match the DIF output
-    order.  The mid matrix is built on device in log(n1) doubling steps."""
-    lf = limb_field(modulus)
-    l1 = log_n // 2
-    l2 = log_n - l1
-    n1, n2 = 1 << l1, 1 << l2
-    w = get_omega(modulus, log_n, inverse)
-
-    def stage_tables(m, wm):
-        """Full-width per-stage twiddle tables, device (nstages, 16, m).
-
-        Stage with half h: tw at position j = wm^((j mod h) * m/(2h)) — the
-        value both members of a pair see (the kernel multiplies full-width
-        and keeps the product only at v positions).  Stages stored in DIF
-        order (h = m/2 .. 1); DIT consumes them reversed."""
-        stages = []
-        h = m // 2
-        while h >= 1:
-            step = m // (2 * h)
-            base = pow(wm, step, modulus)
-            tw = [1] * h
-            for j in range(1, h):
-                tw[j] = (tw[j - 1] * base) % modulus
-            stages.append(lf.encode([tw[j % h] for j in range(m)]).T)
-            h //= 2
-        return jnp.stack(stages, axis=0)  # (nstages, 16, m)
-
-    wn2 = pow(w, n1, modulus)  # root of the size-n2 sub-NTT
-    wn1 = pow(w, n2, modulus)  # root of the size-n1 sub-NTT
-    dif_tab = stage_tables(n2, wn2)
-    dit_tab = stage_tables(n1, wn1)
-
-    # mid twiddle M[p, i1] = w^(i1 * rev_l2(p)) — row bases host, powers of
-    # each row built on device by doubling along i1 (log(n1) dispatches)
-    rev2 = _bitrev_perm(l2)
-    bases = [pow(w, int(rev2[p]), modulus) for p in range(n2)]
-    bp = []  # bp[t][p] = bases[p]^(2^t)
-    cur = bases
-    for _ in range(l1):
-        bp.append(lf.encode(cur))  # (n2, 16)
-        cur = [(v * v) % modulus for v in cur]
-    T = lf.one((n2, 1))  # (n2, 1, 16)
-    for t in range(l1):
-        T = jnp.concatenate([T, lf.mul(T, bp[t][:, None, :])], axis=1)
-    # (n2, n1, 16) -> (16, n2, n1)
-    T = jnp.transpose(T, (2, 0, 1))
-    return dif_tab, dit_tab, jax.block_until_ready(T)
-
-
-@lru_cache(maxsize=None)
-def _fourstep_kernels(modulus: int, log_n: int, block: int, interpret: bool,
-                      chunk: int = 128):
-    """The two fused multi-stage Pallas kernels of the four-step NTT.
-
-    kernel1: a VMEM tile (16, n2, B) runs ALL l2 DIF butterfly stages along
-    the sublane axis (static reshapes; natural input, bit-reversed output)
-    plus the mid twiddle multiply — one HBM read + one write for l2 stages,
-    vs one round-trip per stage in the old per-stage kernel (the 0.12x
-    bottleneck VERDICT r1 flagged; reference recursion: fft.rs:118-155).
-    kernel2 runs the l1 DIT stages (bit-reversed input, natural output).
-    The inter-kernel (transpose + double bit-reversal) is one XLA copy —
-    see _ntt_fourstep_jit."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from .pallas_field import tfield
-
-    tf = tfield(modulus, interpret, lazy=True)
-    l1 = log_n // 2
-    l2 = log_n - l1
-    n1, n2 = 1 << l1, 1 << l2
-
-    CHUNK = chunk  # sublane rows processed per inner step (bounds live VMEM)
-
-    def sub_ntt(a_ref, t_ref, bufs, m, dif: bool, finish):
-        """All log2(m) butterfly stages along axis 1 of a (16, m, B) ref.
-
-        Mosaic/VMEM-friendly formulation: NO reshapes, and the stage sweep is
-        CHUNKED — each fori step reads (16, C, B) row windows from the source
-        scratch and writes windows to the destination scratch (ping-pong), so
-        live vector state stays bounded (full-width muls at m=1024, B=128
-        spilled 116 MB of registers).
-
-        Chunk-PAIR mul sharing (the round-2 twiddle-cost fix BASELINE.md
-        flagged): each fori step processes TWO chunks and packs both chunks'
-        genuine mul inputs (the v-half of every butterfly pair) into ONE
-        full-width CIOS multiply — 0.5 muls/element/stage instead of the 1.0
-        the old full-width masked formulation paid (it multiplied u
-        positions and threw the products away).  Inter-chunk stages (h >= C)
-        pair a u-chunk with its partner v-chunk (no rolls at all); intra-
-        chunk stages (2h <= C) pack chunk c1's mul inputs into the v slots
-        of chunk c0's array with sublane rotates (tw[j] depends only on
-        j mod h, so one twiddle window serves both chunks and both slots).
-        The h == 1 stage's twiddles are all one (wm^((j mod 1)*m/2)): its
-        multiply is skipped outright — lazy values stay in [0, 2p), so the
-        identity is exact.  `finish(chunk, c)` post-processes each chunk of
-        the LAST stage (mid-twiddle mul + canon)."""
-        bufA, bufB = bufs
-        nstages = m.bit_length() - 1
-        C = min(CHUNK, m)
-        nchunks = m // C
-        stage_ids = range(nstages)  # DIF storage order: h = m/2 .. 1
-        order = list(stage_ids) if dif else list(reversed(list(stage_ids)))
-
-        def rolldn(x, h):  # [p] = x[p+h] (partner below)
-            if interpret:
-                return jnp.concatenate([x[:, h:], x[:, :h]], axis=1)
-            return pltpu.roll(x, shift=(C - h) % C, axis=1)
-
-        def rollup(x, h):  # [p] = x[p-h] (partner above)
-            if interpret:
-                return jnp.concatenate([x[:, C - h:], x[:, :C - h]], axis=1)
-            return pltpu.roll(x, shift=h, axis=1)
-
-        for si, s in enumerate(order):
-            h = m >> (s + 1)
-            src = a_ref if si == 0 else (bufB if si % 2 == 1 else bufA)
-            dst = bufB if si % 2 == 0 else bufA
-            last = si == nstages - 1
-            lg = h.bit_length() - 1
-            skip_tw = h == 1  # all-ones twiddle row: multiply is identity
-
-            def put(out, c, dst=dst, last=last):
-                if last:
-                    finish(out, c)
-                else:
-                    dst[:, pl.ds(c * C, C)] = out
-
-            if nchunks == 1:
-                # single chunk: the pre-pairing full-width masked path
-                # (small m — perf-irrelevant, keeps the code simple)
-                def cbody(c, carry, h=h, s=s, src=src, lg=lg,
-                          skip_tw=skip_tw, put=put):
-                    cur = src[:, pl.ds(c * C, C)]
-                    tw = t_ref[s, :, pl.ds(c * C, C)][:, :, None]
-                    down = rolldn(cur, h)
-                    up = rollup(cur, h)
-                    pos = jax.lax.broadcasted_iota(jnp.uint32, cur.shape, 1)
-                    vmask = jnp.uint32(0) - ((pos >> lg) & 1)
-                    if dif:
-                        a_plus = tf.add(cur, down)
-                        d = tf.sub(up, cur)
-                        a_minus = d if skip_tw else tf.mul(d, tw)
-                    else:
-                        v = (cur & vmask) | (down & ~vmask)
-                        p = v if skip_tw else tf.mul(v, tw)
-                        a_plus = tf.add(cur, p)
-                        a_minus = tf.sub(up, p)
-                    put((a_minus & vmask) | (a_plus & ~vmask), c)
-                    return carry
-
-                jax.lax.fori_loop(0, nchunks, cbody, 0)
-            elif h >= C:
-                # whole chunks are u or v: pair (c_u, c_u + h/C), one mul
-                step_c = h // C
-
-                def pbody(i, carry, h=h, s=s, src=src, step_c=step_c,
-                          skip_tw=skip_tw, put=put):
-                    group = i // step_c
-                    off = i - group * step_c
-                    cu = group * 2 * step_c + off
-                    cv = cu + step_c
-                    u = src[:, pl.ds(cu * C, C)]
-                    v = src[:, pl.ds(cv * C, C)]
-                    tw = t_ref[s, :, pl.ds(cu * C, C)][:, :, None]
-                    if dif:
-                        outu = tf.add(u, v)
-                        d = tf.sub(u, v)
-                        outv = d if skip_tw else tf.mul(d, tw)
-                    else:
-                        p = v if skip_tw else tf.mul(v, tw)
-                        outu = tf.add(u, p)
-                        outv = tf.sub(u, p)
-                    put(outu, cu)
-                    put(outv, cv)
-                    return carry
-
-                jax.lax.fori_loop(0, nchunks // 2, pbody, 0)
-            else:
-                # intra-chunk pairs (2h <= C): pack chunk c1's mul inputs
-                # into chunk c0's v slots, multiply once, unpack
-                def pbody(i, carry, h=h, s=s, src=src, lg=lg,
-                          skip_tw=skip_tw, put=put):
-                    c0, c1 = 2 * i, 2 * i + 1
-                    x0 = src[:, pl.ds(c0 * C, C)]
-                    x1 = src[:, pl.ds(c1 * C, C)]
-                    tw = t_ref[s, :, pl.ds(c0 * C, C)][:, :, None]
-                    pos = jax.lax.broadcasted_iota(jnp.uint32, x0.shape, 1)
-                    vmask = jnp.uint32(0) - ((pos >> lg) & 1)
-                    umask = ~vmask
-                    if dif:
-                        # out_u = x_u + x_v; out_v = (x_u - x_v) * tw
-                        r0 = rolldn(x0, h)
-                        r1 = rolldn(x1, h)
-                        plus0 = tf.add(x0, r0)   # valid at u slots
-                        plus1 = tf.add(x1, r1)
-                        d0 = tf.sub(x0, r0)      # mul input at u slots
-                        d1 = tf.sub(x1, r1)
-                        mm = (d0 & umask) | (rollup(d1, h) & vmask)
-                        p = mm if skip_tw else tf.mul(mm, tw)
-                        put((plus0 & umask) | (rollup(p, h) & vmask), c0)
-                        put((plus1 & umask) | (p & vmask), c1)
-                    else:
-                        # out_u = x_u + tw*x_v; out_v = x_u - tw*x_v
-                        mm = (rolldn(x0, h) & umask) | (x1 & vmask)
-                        p = mm if skip_tw else tf.mul(mm, tw)
-                        out0 = (tf.add(x0, p) & umask) | (
-                            tf.sub(rollup(x0, h), rollup(p, h)) & vmask
-                        )
-                        out1 = (tf.add(x1, rolldn(p, h)) & umask) | (
-                            tf.sub(rollup(x1, h), p) & vmask
-                        )
-                        put(out0, c0)
-                        put(out1, c1)
-                    return carry
-
-                jax.lax.fori_loop(0, nchunks // 2, pbody, 0)
-
-    def kernel1(a_ref, t_ref, mid_ref, o_ref, bufA, bufB):
-        C = min(CHUNK, n2)
-
-        def finish(chunk, c):
-            mid = mid_ref[:, pl.ds(c * C, C)]
-            o_ref[:, pl.ds(c * C, C)] = tf.canon(tf.mul(chunk, mid))
-
-        sub_ntt(a_ref, t_ref, (bufA, bufB), n2, True, finish)
-
-    def kernel2(a_ref, t_ref, o_ref, bufA, bufB):
-        C = min(CHUNK, n1)
-
-        def finish(chunk, c):
-            o_ref[:, pl.ds(c * C, C)] = tf.canon(chunk)
-
-        sub_ntt(a_ref, t_ref, (bufA, bufB), n1, False, finish)
-
-    def spec3(m, B):
-        return pl.BlockSpec(
-            (NUM_LIMBS, m, B), lambda i: (0, 0, i), memory_space=pltpu.VMEM
-        )
-
-    def tabspec(nstages, m):
-        return pl.BlockSpec(
-            (nstages, NUM_LIMBS, m), lambda i: (0, 0, 0),
-            memory_space=pltpu.VMEM,
-        )
-
-    def pingpong(m):
-        return [
-            pltpu.VMEM((NUM_LIMBS, m, block), jnp.uint32) for _ in range(2)
-        ]
-
-    def run1(a, tab, mid):
-        # a, mid: (16, n2, n1); tab: (l2, 16, n2)
-        grid = (n1 // block,)
-        return pl.pallas_call(
-            kernel1,
-            out_shape=jax.ShapeDtypeStruct((NUM_LIMBS, n2, n1), jnp.uint32),
-            grid=grid,
-            in_specs=[spec3(n2, block), tabspec(l2, n2), spec3(n2, block)],
-            out_specs=spec3(n2, block),
-            scratch_shapes=pingpong(n2),
-            compiler_params=None if interpret else pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 1024 * 1024
-            ),
-            interpret=interpret,
-        )(a, tab, mid)
-
-    def run2(a, tab):
-        grid = (n2 // block,)
-        return pl.pallas_call(
-            kernel2,
-            out_shape=jax.ShapeDtypeStruct((NUM_LIMBS, n1, n2), jnp.uint32),
-            grid=grid,
-            in_specs=[spec3(n1, block), tabspec(l1, n1)],
-            out_specs=spec3(n1, block),
-            scratch_shapes=pingpong(n1),
-            compiler_params=None if interpret else pltpu.CompilerParams(
-                vmem_limit_bytes=100 * 1024 * 1024
-            ),
-            interpret=interpret,
-        )(a, tab)
-
-    return run1, run2
-
-
-@lru_cache(maxsize=None)
-def _ntt_fourstep_jit(modulus: int, log_n: int, inverse: bool, block: int,
-                      interpret: bool, chunk: int = 128):
-    lf = limb_field(modulus)
-    n = 1 << log_n
-    l1 = log_n // 2
-    l2 = log_n - l1
-    n1, n2 = 1 << l1, 1 << l2
-    dif_tab, dit_tab, mid = _fourstep_consts(modulus, log_n, inverse)
-    run1, run2 = _fourstep_kernels(modulus, log_n, block, interpret, chunk)
-    rev1 = jnp.asarray(_bitrev_perm(l1))
-    rev2 = jnp.asarray(_bitrev_perm(l2))
-
-    def run(a):
-        # (n, 16) natural -> limbs-major matrix A[:, i2, i1], i = i1 + n1*i2
-        x = a.T.reshape(NUM_LIMBS, n2, n1)
-        c = run1(x, dif_tab, mid)  # C[:, rev(k2), i1]
-        # mid permutation: D[:, rev(i1), k2] = C[:, rev(k2), i1] as two row
-        # gathers around one plain transpose — XLA:TPU lowers this ~3 ms
-        # faster at 2^20 than the equivalent single 2-bit-axes mega
-        # transpose (measured 16.7 vs 19.6 ms/NTT chained)
-        d = jnp.transpose(c[:, rev2, :], (0, 2, 1))[:, rev1, :]
-        e = run2(d, dit_tab)  # E[:, k1, k2], k = k1*n2 + k2 natural
-        out = e.reshape(NUM_LIMBS, n).T
-        if inverse:
-            out = lf.mul(out, lf.const(pow(n, -1, modulus), (1,)))
-        return out
-
-    return jax.jit(run)
-
-
 def ntt(a, modulus: int, inverse: bool = False):
     """Forward/inverse NTT of a (n, NUM_LIMBS) Montgomery limb array.
 
     Output is in standard order; inverse includes the 1/n divisor
-    (reference fft.rs:160-174).  Backend: fused Pallas stage kernels on
-    accelerators (MIRA_NTT=pallas|xla overrides), XLA reshape stages on CPU.
+    (reference fft.rs:160-174).  Runs the XLA reshape stages on every
+    platform (the "ntt" route of routes.py).
     """
-    import os
-
     n = a.shape[0]
     log_n = n.bit_length() - 1
     assert 1 << log_n == n
     if log_n == 0:
         return a
-    backend = os.environ.get("MIRA_NTT", "auto")
-    if backend == "auto":
-        backend = (
-            "fourstep"
-            if jax.default_backend() not in ("cpu",) and n >= 4096
-            else "xla"
-        )
-    interpret = jax.default_backend() == "cpu"
-    if backend in ("pallas", "fourstep"):
-        # fused multi-stage four-step kernels (one HBM round-trip per
-        # log(n)/2 stages instead of per stage)
-        n1 = 1 << (log_n // 2)
-        block = min(128, n1)
-        return _ntt_fourstep_jit(modulus, log_n, inverse, block, interpret)(a)
-    if backend == "pallas-stage":
-        block = min(512, n // 2)
-        return _ntt_pallas_jit(modulus, log_n, inverse, block, interpret)(a)
+    if route("ntt") != "xla":  # pragma: no cover - the only NTT route
+        raise ValueError("unknown NTT route")
     return _ntt_jit(modulus, log_n, inverse)(a)
 
 

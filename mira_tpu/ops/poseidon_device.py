@@ -1,4 +1,4 @@
-"""Batched Poseidon on device (TPU) — §2.3 item 4 of SURVEY.md.
+"""Batched Poseidon on device — §2.3 item 4 of SURVEY.md.
 
 The transcript sponge is inherently sequential (host: ops/poseidon.py), but
 batch hashing — Merkle levels, leaf commitments, witness preparation — is

@@ -1,7 +1,7 @@
 """Plonkish structure, instances, witnesses and the folding objects.
 
 Mirrors the type/protocol surface of the reference's
-/root/reference/src/plonk/mod.rs re-designed TPU-first:
+/root/reference/src/plonk/mod.rs re-designed for the device:
 
 * witness rounds live on device as Montgomery limb arrays; commitments run
   through the device MSM; row-satisfaction checks and witness folding are
@@ -32,6 +32,7 @@ import numpy as np
 from ..curves.host import AffinePoint, CurveParams, G2Point, Tuple12
 from ..fields.host import Fp, field, fe_to_fe
 from ..fields.limbs import limb_field
+from ..routes import route
 from ..polynomial.evaluator import ColumnEvaluator, EvalDomain, eval_rows_host
 from ..polynomial.expression import (
     CompressedGates,
@@ -161,18 +162,18 @@ class PlonkStructure:
             )
         return cache[which]
 
-    def _pallas_fold_evaluator(self):
-        """VMEM-fused multi-point fold evaluator (polynomial/pallas_evaluator);
-        evaluates P(W1 + j*W2) at every cross-term point j in ONE sweep over
-        the witness columns — the TPU path of commit_cross_terms."""
+    def _fold_evaluator(self):
+        """Multi-point fold evaluator (polynomial/fold_evaluator.py):
+        evaluates P(W1 + j*W2) at every cross-term point j in one jitted
+        program — the device route of commit_cross_terms."""
         cache = getattr(self, "_eval_cache", None)
         if cache is None:
             cache = {}
             object.__setattr__(self, "_eval_cache", cache)
-        if "pallas_fold" not in cache:
-            from ..polynomial.pallas_evaluator import PallasFoldEvaluator
+        if "fold" not in cache:
+            from ..polynomial.fold_evaluator import FoldEvaluator
 
-            cache["pallas_fold"] = PallasFoldEvaluator(
+            cache["fold"] = FoldEvaluator(
                 self.compressed_gates.homogeneous,
                 self.modulus,
                 self.num_advice_columns,
@@ -181,7 +182,7 @@ class PlonkStructure:
                 self.fixed_columns,
                 1 << self.k,
             )
-        return cache["pallas_fold"]
+        return cache["fold"]
 
     def _native_fold_evaluator(self, which: str = "homogeneous"):
         """Row-parallel native C++ VM (polynomial/native_evaluator) — the
@@ -211,69 +212,26 @@ class PlonkStructure:
         return cache[key]
 
     def _eval_full(self, which: str, Ws, challenges):
-        """Evaluate a compressed-gate expression on every row — native VM
-        on CPU hosts (j=0 fold against a zero witness); on accelerators the
-        SAME cached multi-point Pallas fold evaluator the prover's
-        commit_cross_terms uses, at the single point j=0 (the homogeneous
-        expression at u=1 equals the compressed one, so both `which` modes
-        ride one evaluator/compile), with the same HBM auto-fallback to the
-        native row VM.  Routing the decider through the prover's evaluator
-        is VERDICT r4 item 7: the XLA column evaluator this replaced ran
-        the k=19 decider in minutes.  Returns (nrow, 16) Montgomery limbs."""
-        import os as _os
-
-        import jax
-
+        """Evaluate a compressed-gate expression on every row, on the
+        platform's fold_eval route (routes.py): the native row VM (a j=0
+        fold against a zero witness), or the prover's multi-point device
+        evaluator at the single point j=0 (the homogeneous expression at
+        u=1 equals the compressed one, so both `which` modes ride one
+        evaluator).  Returns (nrow, 16) Montgomery limbs."""
         p = self.modulus
-        ch_h = list(challenges) + ([1] if which == "compressed" else [])
-
-        def _native():
-            from ..polynomial.native_evaluator import available
-
-            if not available():
-                return None
-            import numpy as np
-
+        if route("fold_eval") == "native":
             nev = self._native_fold_evaluator(which)
             zeros = [np.zeros_like(np.asarray(w)) for w in Ws]
-            out = nev.fold_eval_multi(
+            return nev.fold_eval_multi(
                 tuple(Ws), tuple(zeros), [0],
                 [c % p for c in challenges],
                 [0] * len(challenges),
-            )
-            return out[0]
-
-        if jax.default_backend() == "cpu":
-            try:
-                out = _native()
-                if out is not None:
-                    return out
-            except ImportError:  # pragma: no cover
-                pass
-        else:
-            from ..nifs.vanilla import fold_eval_est_mb
-
-            d = self.get_degree_for_folding() - 1
-            budget = int(_os.environ.get("MIRA_FOLD_EVAL_HBM_MB", "6000"))
-            if fold_eval_est_mb(self, d) <= budget:
-                try:
-                    pev = self._pallas_fold_evaluator()
-                    out = pev.fold_eval_multi(
-                        tuple(Ws), tuple(Ws), [0], [c % p for c in ch_h],
-                        [0] * len(ch_h),
-                    )
-                    return out[0]
-                except Exception as e:  # noqa: BLE001
-                    # shared-chip free HBM can be less than the estimate's
-                    # budget; self-heal onto the native VM (same fallback
-                    # as commit_cross_terms)
-                    if "RESOURCE_EXHAUSTED" not in str(e):
-                        raise
-            out = _native()
-            if out is not None:
-                return out
-        ev = self._evaluator(which)
-        return ev(Ws, (), list(challenges))
+            )[0]
+        ch_h = list(challenges) + ([1] if which == "compressed" else [])
+        return self._fold_evaluator().fold_eval_multi(
+            tuple(Ws), tuple(Ws), [0], [c % p for c in ch_h],
+            [0] * len(ch_h),
+        )[0]
 
     # -- satisfaction checks -------------------------------------------------
     def is_sat(self, ck, ro_nark, U: "PlonkInstance", W: "PlonkWitness"):
@@ -290,9 +248,8 @@ class PlonkStructure:
             if not self.is_sat_log_derivative(W):
                 raise SatError("log derivative relation not satisfied")
         for i, (ci, wi) in enumerate(zip(U.W_commitments, W.W)):
-            # one-shot recompute: never build a fixed-base table for it
             with span(f"sat_W_commit_{i}"):
-                if ck.commit_device(wi, allow_fb=False) != ci:
+                if ck.commit_device(wi) != ci:
                     raise SatError(f"W commitment mismatch at round {i}")
 
     def is_sat_relaxed(self, ck, U: "RelaxedPlonkInstance", W: "RelaxedPlonkWitness"):
@@ -312,12 +269,11 @@ class PlonkStructure:
             if not self.is_sat_log_derivative(W):
                 raise SatError("log derivative relation not satisfied")
         for i, (ci, wi) in enumerate(zip(U.W_commitments, W.W)):
-            # one-shot recompute: never build a fixed-base table for it
             with span(f"sat_W_commit_{i}"):
-                if ck.commit_device(wi, allow_fb=False) != ci:
+                if ck.commit_device(wi) != ci:
                     raise SatError(f"W commitment mismatch at round {i}")
         with span("sat_E_commit"):
-            if ck.commit_device(W.E, allow_fb=False) != U.E_commitment:
+            if ck.commit_device(W.E) != U.E_commitment:
                 raise SatError("E commitment mismatch")
         ctx = getattr(self, "groth16_ctx", None)
         if ctx is not None:
@@ -827,7 +783,8 @@ class RelaxedPlonkWitness:
              mesh=None) -> "RelaxedPlonkWitness":
         """W' = W1 + r*W2; E' = E + sum_k r^k T_k (reference plonk/mod.rs:1097),
         as ONE fused program per shape instead of ~16 separate RLC passes.
-        On CPU hosts the RLC runs on the native 4x64 Montgomery kernel.
+        On the native encode route (CPU) the RLC runs on the native 4x64
+        Montgomery kernel.
 
         With a mesh, operands are row-sharded and GSPMD partitions the
         (purely elementwise) RLC across the devices — the multi-chip analog
@@ -864,7 +821,7 @@ class RelaxedPlonkWitness:
             )
             return RelaxedPlonkWitness(lf, list(W_out), E)
 
-        if jax.default_backend() == "cpu":
+        if route("encode") == "native":
             try:
                 from ..fields.native64 import (
                     available,

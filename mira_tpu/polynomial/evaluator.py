@@ -8,7 +8,7 @@ Two implementations with identical semantics:
   `PlonkEvalDomain::eval_advice_var` (/root/reference/src/plonk/eval.rs:153-228)
   and rotations taken mod 2^k.
 
-* `ColumnEvaluator` — the TPU path: evaluates whole columns at once on limb
+* `ColumnEvaluator` — the device path: evaluates whole columns at once on limb
   arrays (rotations are `jnp.roll`), one fused jitted program per expression.
   This replaces the reference's per-row interpreted loop
   (/root/reference/src/plonk/mod.rs:461-530) with the natural vector idiom.
@@ -78,10 +78,13 @@ def advice_round_col(num_advice: int, index: int, num_witness: int):
     raise ValueError(f"invalid num_witness {num_witness}")
 
 
-def eval_rows_host(expr: Expression, data: EvalDomain) -> List[int]:
-    """Evaluate `expr` on every row; returns python ints."""
+def eval_rows_host(expr: Expression, data: EvalDomain,
+                   rows: Optional[Sequence[int]] = None) -> List[int]:
+    """Evaluate `expr` on every row (or on `rows`); returns python ints."""
     p = data.modulus
     nrow = data.nrow
+    picked = range(nrow) if rows is None else list(rows)
+    n = len(picked)
     max_width = data.num_advice + 5 * data.num_lookup
     n_sel, n_fix = len(data.selectors), len(data.fixed)
 
@@ -100,14 +103,12 @@ def eval_rows_host(expr: Expression, data: EvalDomain) -> List[int]:
             rnd, colj = data.advice_round_col(idx, num_witness)
             col = Ws[rnd][colj * nrow : (colj + 1) * nrow]
         rot = q.rotation % nrow
-        if rot:
-            col = list(col[rot:]) + list(col[:rot])
-        return col
+        return [col[(r + rot) % nrow] for r in picked]
 
     out = expr.evaluate(
-        constant=lambda c: [c % p] * nrow,
+        constant=lambda c: [c % p] * n,
         poly=lambda q: column(q),
-        challenge=lambda i: [data.challenges[i] % p] * nrow,
+        challenge=lambda i: [data.challenges[i] % p] * n,
         negated=lambda a: [(-x) % p for x in a],
         sum_=lambda a, b: [(x + y) % p for x, y in zip(a, b)],
         product=lambda a, b: [(x * y) % p for x, y in zip(a, b)],

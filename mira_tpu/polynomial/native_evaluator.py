@@ -1,16 +1,15 @@
 """Native C++ fold evaluator — the CPU runtime path of commit_cross_terms.
 
-Compiles an Expression into a linear op list with common-subexpression
-elimination (the reference's GraphEvaluator design,
+Runs the op list of fold_evaluator.compile_ops (common subexpressions shared,
+the reference's GraphEvaluator design,
 /root/reference/src/polynomial/graph_evaluator.rs:196+, which dedups
-constants/rotations/intermediates into `Calculation` ops) and executes it
-row-parallel in native/evaluator.cpp — 4x64-bit __int128 Montgomery
-arithmetic, threads over row chunks (the rayon analog).
+constants/rotations/intermediates into `Calculation` ops) row-parallel in
+native/evaluator.cpp — 4x64-bit __int128 Montgomery arithmetic, threads over
+row chunks (the rayon analog).
 
-The TPU path is the fused Pallas kernel (pallas_evaluator.py); this VM
-exists because XLA:CPU executes the vectorized 16-bit-limb CIOS graphs at
-~2.3k row-evals/s/core on SnarkStar shapes, while scalar __int128
-Montgomery runs the same rows ~50x faster.
+The GPU runs the same op list on the device (fold_evaluator.py); this VM
+exists because XLA:CPU executes the vectorized 16-bit-limb CIOS graphs
+slowly, while scalar __int128 Montgomery runs the same rows far faster.
 
 Field layout at the ABI: little-endian 4x64 Montgomery limbs — the byte
 image of the device's (.., 16) 16-bit-limb uint32 arrays after dropping
@@ -20,124 +19,29 @@ the upper halves, so conversion is a numpy view, not arithmetic.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+from typing import Sequence
 
 import numpy as np
 
 from ..fields.limbs import LIMB_BITS, NUM_LIMBS
+from ..fields.native64 import limbs16_to_64, limbs64_to_16
 from ..utils.native_lib import available, load as _load  # noqa: F401
 from .evaluator import advice_round_col
-from .expression import (
-    Challenge,
-    Const,
-    Expression,
-    Neg,
-    Poly,
-    Product,
-    Scaled,
-    Sum,
+from .expression import Expression
+from .fold_evaluator import (
+    _split_scalar_subtrees,
+    compile_ops,
+    point_challenges,
+    query_layout,
 )
-from .pallas_evaluator import _eval_scalar, _split_scalar_subtrees
 
 _MONT_R = 1 << (LIMB_BITS * NUM_LIMBS)
-
-OP_LOAD_STATIC = 0
-OP_LOAD_FOLD = 1
-OP_LOAD_CH = 2
-OP_LOAD_CONST = 3
-OP_ADD = 4
-OP_MUL = 5
-OP_NEG = 6
-OP_OUTPUT = 7
-
-
-def limbs16_to_64(arr) -> np.ndarray:
-    """(..., 16) uint32 16-bit-limb array -> C-contiguous (..., 4) uint64."""
-    a = np.ascontiguousarray(np.asarray(arr), dtype=np.uint32).astype("<u2")
-    return np.ascontiguousarray(a).view("<u8").reshape(*a.shape[:-1], 4)
-
-
-def limbs64_to_16(arr) -> np.ndarray:
-    """(..., 4) uint64 -> (..., 16) uint32 16-bit-limb array."""
-    a = np.ascontiguousarray(arr, dtype="<u8")
-    return a.view("<u2").astype(np.uint32).reshape(*a.shape[:-1], NUM_LIMBS)
-
-
-def _compile_ops(expr: Expression, qslot, modulus: int):
-    """Expression -> (ops int32 (n,4), n_regs, consts (n_c, 4) u64).
-
-    CSE by structural key; one SSA register per unique node."""
-    ops: List[tuple] = []
-    consts: List[int] = []
-    const_slot = {}
-    memo = {}
-
-    def const_of(v: int) -> int:
-        v = v % modulus
-        if v not in const_slot:
-            const_slot[v] = len(consts)
-            consts.append(v * _MONT_R % modulus)
-        return const_slot[v]
-
-    def emit(op, a, b=-1) -> int:
-        dst = len(ops)
-        ops.append((op, a, b, dst))
-        return dst
-
-    def go(e) -> int:
-        if isinstance(e, Poly):
-            key = ("q", e.query)
-        elif isinstance(e, Challenge):
-            key = ("c", e.index)
-        elif isinstance(e, Const):
-            key = ("k", e.value % modulus)
-        else:
-            a = go(e.a)
-            if isinstance(e, Neg):
-                key = ("n", a)
-            elif isinstance(e, Scaled):
-                key = ("s", a, e.k % modulus)
-            else:
-                b = go(e.b)
-                lo, hi = min(a, b), max(a, b)
-                key = (("+" if isinstance(e, Sum) else "*"), lo, hi)
-        if key in memo:
-            return memo[key]
-        if key[0] == "q":
-            kind, slot = qslot[e.query]
-            r = emit(OP_LOAD_STATIC if kind == "s" else OP_LOAD_FOLD, slot)
-        elif key[0] == "c":
-            r = emit(OP_LOAD_CH, e.index)
-        elif key[0] == "k":
-            r = emit(OP_LOAD_CONST, const_of(e.value))
-        elif key[0] == "n":
-            r = emit(OP_NEG, key[1])
-        elif key[0] == "s":
-            kr = emit(OP_LOAD_CONST, const_of(e.k))
-            r = emit(OP_MUL, key[1], kr)
-        else:
-            r = emit(OP_ADD if key[0] == "+" else OP_MUL, key[1], key[2])
-        memo[key] = r
-        return r
-
-    out_reg = go(expr)
-    ops.append((OP_OUTPUT, out_reg, -1, out_reg))
-    n_regs = len(ops)
-    op_arr = np.asarray(ops, dtype=np.int32)
-    if consts:
-        c64 = np.zeros((len(consts), 4), dtype=np.uint64)
-        for i, v in enumerate(consts):
-            for k in range(4):
-                c64[i, k] = (v >> (64 * k)) & 0xFFFFFFFFFFFFFFFF
-    else:
-        c64 = np.zeros((1, 4), dtype=np.uint64)
-    return op_arr, n_regs, c64
 
 
 class NativeFoldEvaluator:
     """Multi-point fold evaluation on the native VM.
 
-    Same query layout and scalar-subtree split as PallasFoldEvaluator."""
+    Same query layout, scalar-subtree split and op list as FoldEvaluator."""
 
     def __init__(
         self,
@@ -149,37 +53,13 @@ class NativeFoldEvaluator:
         fixed: Sequence[Sequence[int]],
         nrow: int,
     ):
-        from .pallas_evaluator import _collect_queries
-
         self.expr = expr
         self.modulus = modulus
         self.num_advice = num_advice
         self.nrow = nrow
-        n_sel, n_fix = len(selectors), len(fixed)
-        max_width = num_advice + 5 * num_lookup
-
-        self.qslot = {}
-        self.advice_idx_rot: List[tuple] = []
-        static_cols = []
-        for q in _collect_queries(expr):
-            rot = q.rotation % nrow
-            if q.index < n_sel + n_fix:
-                self.qslot[q] = ("s", len(static_cols))
-                if q.index < n_sel:
-                    col = [1 if b else 0 for b in selectors[q.index]]
-                else:
-                    col = list(fixed[q.index - n_sel])
-                if rot:
-                    col = col[rot:] + col[:rot]
-                static_cols.append(col)
-            else:
-                idx = q.index - n_sel - n_fix
-                if idx >= max_width:
-                    raise ValueError(
-                        "fold evaluator only supports first-instance queries"
-                    )
-                self.qslot[q] = ("a", len(self.advice_idx_rot))
-                self.advice_idx_rot.append((idx, rot))
+        self.qslot, self.advice_idx_rot, static_cols = query_layout(
+            expr, num_advice, num_lookup, selectors, fixed, nrow
+        )
 
         # Montgomery-encode static cols host-side into (n_sq, nrow, 4) u64
         n_sq = max(len(static_cols), 1)
@@ -205,7 +85,7 @@ class NativeFoldEvaluator:
     def _ops(self, n_ch_base: int):
         if n_ch_base not in self._ops_cache:
             rewritten, _ = self._split(n_ch_base)
-            self._ops_cache[n_ch_base] = _compile_ops(
+            self._ops_cache[n_ch_base] = compile_ops(
                 rewritten, self.qslot, self.modulus
             )
         return self._ops_cache[n_ch_base]
@@ -231,7 +111,11 @@ class NativeFoldEvaluator:
         """Returns (n_j, nrow, 16) uint32 Montgomery limb numpy array
         (or the raw (n_j, nrow, 4) uint64 buffer when as64)."""
         lib = _load()
-        assert lib is not None
+        if lib is None:
+            raise RuntimeError(
+                "the native row VM (native/evaluator.cpp) did not build: "
+                "the fold_eval route needs g++"
+            )
         p = self.modulus
         nrow = self.nrow
         n_j = len(j_values)
@@ -250,10 +134,7 @@ class NativeFoldEvaluator:
                     out[i, k] = (mv >> (64 * k)) & 0xFFFFFFFFFFFFFFFF
             return out
 
-        ch_rows = []
-        for j in j_values:
-            chj = [(a + j * b) % p for a, b in zip(ch1, ch2)]
-            ch_rows.append(chj + [_eval_scalar(s, p, chj) for s in scalars])
+        ch_rows = point_challenges(j_values, ch1, ch2, scalars, p)
         n_ch = max(n_ch_base + len(scalars), 1)
         ch64 = enc64([v for row in ch_rows for v in row]) if ch_rows and \
             ch_rows[0] else np.zeros((n_j, 4), dtype=np.uint64)

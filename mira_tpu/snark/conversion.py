@@ -3,7 +3,7 @@
 Role parity with the reference's conversion layers
 (/root/reference/examples/groth16/conversion.rs, examples/zkml/conversion.rs),
 which convert arkworks-generated proofs into the folding stack's own curve
-types.  The TPU-native build speaks the *snarkjs* JSON dialect instead —
+types.  This build speaks the *snarkjs* JSON dialect instead —
 the de-facto interchange format of the circom/snarkjs ecosystem over BN254
 ("bn128"), so externally generated proofs can be folded without this repo's
 prover:

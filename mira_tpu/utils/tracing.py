@@ -166,7 +166,7 @@ def aggregate(min_runtime: float = 0.0) -> str:
 def memory_report() -> str:
     """Host peak RSS + per-device memory stats — the analog of the
     reference's dhat heap profiling feature (examples/groth16/main.rs:1-3,
-    Cargo.toml dhat-heap), TPU-shaped: device HBM stats come from the PJRT
+    Cargo.toml dhat-heap); device memory stats come from the PJRT
     allocator."""
     import resource
 

@@ -161,8 +161,8 @@ def run(steps: int = 1, batch_size: int = 1, use_mock_ck: bool = True,
         step_secs.append(time.time() - t0)
         print(f"fold step {step + 1}: {step_secs[-1]:.1f}s", flush=True)
     if not use_mock_ck:
-        # decider recomputes full-width commitments; free the folding-phase
-        # device tables first so both phases fit HBM at reference scale
+        # the decider recomputes full-width commitments; free the
+        # folding-phase device caches first
         for ck in (ck1, ck2):
             release = getattr(ck, "release_device_cache", None)
             if release:

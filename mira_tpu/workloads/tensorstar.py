@@ -96,8 +96,7 @@ def run(repeat_count: int = 1, matrix_dim: int = 32, baseline: bool = False,
     print(f"public params: {time.time() - t0:.1f}s")
 
     def _hbm(tag):
-        """Log device HBM occupancy (footprint evidence for the k=22
-        HBM budget — the 16 GB chip is the binding constraint here)."""
+        """Log device memory occupancy (footprint evidence for k=22)."""
         try:
             import jax
 

@@ -4,10 +4,10 @@
 // This is the CPU runtime analog of the reference's GraphEvaluator — the
 // rayon-parallel row interpreter that is the hot inner loop of folding
 // (/root/reference/src/polynomial/graph_evaluator.rs:93-149,
-// /root/reference/src/nifs/vanilla/mod.rs:109-116).  The TPU compute path
-// is the fused Pallas kernel (mira_tpu/polynomial/pallas_evaluator.py);
-// this VM serves CPU hosts where XLA:CPU's vectorized 16-bit-limb CIOS is
-// ~50x slower than 4x64-bit __int128 scalar Montgomery.
+// /root/reference/src/nifs/vanilla/mod.rs:109-116).  It is the fold_eval
+// route on both platforms (mira_tpu/routes.py); on CPU hosts XLA:CPU's
+// vectorized 16-bit-limb CIOS is far slower than 4x64-bit __int128 scalar
+// Montgomery.
 //
 // All field values are little-endian 4x64 limbs in Montgomery form
 // (R = 2^256) — bit-identical to the 16x16-bit device layout reinterpreted

@@ -3,7 +3,7 @@
 //
 // This is the runtime-side (CPU) commitment engine — the role the reference's
 // Rust `best_multiexp` plays (/root/reference/src/commitment.rs:78-87 via
-// halo2curves); the TPU compute path (ops/pallas_msm.py) is separate.  Plain
+// halo2curves); the GPU path (msm_gpu.cu) is separate.  Plain
 // (non-Montgomery) little-endian 4x64 limbs in, Jacobian plain limbs out;
 // Montgomery conversion happens internally so the ABI stays representation-
 // agnostic.

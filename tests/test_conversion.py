@@ -1,4 +1,4 @@
-"""External proof ingestion (snarkjs JSON) — VERDICT r1 item 9.
+"""External proof ingestion (snarkjs JSON).
 
 Role parity: /root/reference/examples/groth16/conversion.rs (ark->halo2);
 here the interchange dialect is snarkjs JSON over bn128.

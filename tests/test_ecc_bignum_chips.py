@@ -200,7 +200,7 @@ def test_fp12_chip_mul_scalar_mul():
 
 
 # ---------------------------------------------------------------------------
-# Bignum edge cases (VERDICT r1 item 8 — the intent of the reference's
+# Bignum edge cases (the intent of the reference's
 # /root/reference/src/gadgets/nonnative/bn/big_uint_mul_mod_chip/tests.rs)
 # ---------------------------------------------------------------------------
 

@@ -145,8 +145,8 @@ def test_merkle_hash_golden_vectors():
     """Parameter parity with the reference Merkle gadget: node hash is
     Poseidon(T=5, RATE=4, R_F=R_P=10) truncated to 255 bits
     (/root/reference/src/gadgets/merkle_tree_gadget/mod.rs:1-2 sets T=5,
-    RATE=T-1; off_circuit.rs:15-24 sets R_F=R_P=10, NUM_BITS=255 — VERDICT
-    r1 item 7 misread T=3/RATE=2 into off_circuit.rs).  These golden values
+    RATE=T-1; off_circuit.rs:15-24 sets R_F=R_P=10, NUM_BITS=255).  These
+    golden values
     pin the whole stack: Grain constants, sponge padding, truncation, and
     the default-subtree chain."""
     from mira_tpu.fields.params import BN254_FR

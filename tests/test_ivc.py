@@ -202,9 +202,9 @@ def test_ivc_checkpoint_roundtrip(tmp_path):
     assert ivc2.secondary_trace.u.instance == ivc.secondary_trace.u.instance
     ivc2.verify(strict=False)
 
-    # IVC.resume: same restore WITHOUT paying a fresh zero step first
-    # (VERDICT r1 weak 6) — state must match the load_checkpoint path field
-    # for field and the resumed IVC must verify.
+    # IVC.resume: same restore WITHOUT paying a fresh zero step first —
+    # state must match the load_checkpoint path field for field and the
+    # resumed IVC must verify.
     ivc3 = IVC.resume(
         pp, TrivialCircuit(arity=1), TrivialCircuit(arity=1), path
     )
@@ -227,7 +227,7 @@ def test_ivc_fold_step_mesh_matches_single():
     """IVC.fold_step(mesh=) — cross-term eval+commits, SPS witness commits,
     and the witness RLC fold all sharded over the 8-virtual-device CPU mesh —
     must produce the same instances, step for step, as the single-device
-    run (VERDICT r2 item 6; substitutes for distributed tests per SURVEY §4,
+    run (substitutes for distributed tests per SURVEY §4,
     rayon sites /root/reference/src/plonk/mod.rs:653-907,1097-1134)."""
     from mira_tpu.parallel.mesh import make_mesh
 

@@ -123,7 +123,7 @@ class MultiLookupCircuit(LookupCircuit):
     """TWO independent scalar lookup arguments — exercises the interleaved
     (l_i,t_i,m_i) per-lookup SPS round-2 layout (plonk/structure.py:435-443)
     with >1 lookup, the case where the reference's own layout notes are
-    inconsistent (VERDICT r1 weak 7)."""
+    inconsistent)."""
 
     def configure(self, cs):
         t0 = cs.fixed_column()

@@ -15,6 +15,7 @@ from mira_tpu.nifs.vanilla import VanillaFS
 from mira_tpu.ops.commitment import CommitmentKey
 from mira_tpu.ops.poseidon import create_ro
 from mira_tpu.plonk.structure import SatError, SpsError
+from mira_tpu.routes import forced
 from mira_tpu.polynomial.evaluator import EvalDomain, eval_rows_host
 from mira_tpu.table.runner import CircuitRunner
 
@@ -209,41 +210,25 @@ def test_fold_two_steps(circuit_cls):
     assert U_v2 == acc2.U
 
 
-@pytest.mark.parametrize(
-    "fold_impl",
-    [
-        "xla",
-        pytest.param(
-            "pallas",
-            marks=[
-                pytest.mark.slow,
-                pytest.mark.skipif(
-                    not __import__("os").environ.get("MIRA_RUN_SLOW"),
-                    reason="~3min XLA:CPU compile of the fused multi-point "
-                    "body; set MIRA_RUN_SLOW=1",
-                ),
-            ],
-        ),
-        "native",
-    ],
-)
+@pytest.mark.parametrize("fold_impl", ["mesh", "jnp", "native"])
 @pytest.mark.parametrize("assume_sat", [True, False])
-def test_cross_terms_numeric_vs_symbolic(assume_sat, fold_impl, monkeypatch):
+def test_cross_terms_numeric_vs_symbolic(assume_sat, fold_impl):
     """The numeric (evaluate+interpolate) cross terms must equal the
     symbolic GroupedPoly slice evaluation (the reference's algorithm) —
     both via the full d+1-point interpolation and via the satisfied-trace
     shortcut (Q(0) = E, leading coefficient = 0).
 
-    fold_impl="pallas" routes through PallasFoldEvaluator (the fused
-    multi-point TPU kernel body, executed as plain jnp on the CPU test
-    backend — polynomial/pallas_evaluator.py); "native" routes through the
-    C++ row VM (polynomial/native_evaluator.py)."""
+    fold_impl="jnp" routes through FoldEvaluator (the device loop over the
+    op list, polynomial/fold_evaluator.py); "native" through the C++ row VM
+    (polynomial/native_evaluator.py); "mesh" through FoldEvaluator with the
+    rows sharded over an 8-device mesh, whatever the platform's route."""
+    from mira_tpu.parallel.mesh import make_mesh
+
     if fold_impl == "native":
         from mira_tpu.polynomial.native_evaluator import available
 
         if not available():
             pytest.skip("no native toolchain")
-    monkeypatch.setenv("MIRA_FOLD_EVAL", fold_impl)
     S, advice1, ck = setup(TwoGateCircuit, seed=3)
     runner2 = CircuitRunner(K, TwoGateCircuit(4), [], BN254_G1)
     advice2 = runner2.collect_witness()
@@ -253,9 +238,12 @@ def test_cross_terms_numeric_vs_symbolic(assume_sat, fold_impl, monkeypatch):
     trace2 = VanillaFS.generate_plonk_trace(ck, [], advice2, pp, ro())
     acc = trace1.to_relax(S.k)
 
-    cross_terms, _ = VanillaFS.commit_cross_terms(
-        ck, S, acc.U, acc.W, trace2.u, trace2.w, assume_sat=assume_sat
-    )
+    mesh = make_mesh(8) if fold_impl == "mesh" else None
+    with forced("fold_eval", "native" if mesh else fold_impl):
+        cross_terms, _ = VanillaFS.commit_cross_terms(
+            ck, S, acc.U, acc.W, trace2.u, trace2.w, assume_sat=assume_sat,
+            mesh=mesh,
+        )
 
     # symbolic: evaluate each grouped slice per row on host
     dom = EvalDomain(
@@ -378,30 +366,42 @@ def test_debug_sat_guard(monkeypatch):
 @pytest.mark.parametrize(
     "circuit_cls", [MulCircuit, TwoGateCircuit, FiboCircuit]
 )
-def test_fold_eval_hbm_estimate_pinned(circuit_cls):
-    """VERDICT r4 weak 6: the auto-fallback's cheap residency estimate
-    (nifs/vanilla.fold_eval_est_bytes — decides Pallas vs native row VM
-    WITHOUT building the evaluator) must track the evaluator's query-exact
-    residency model (PallasFoldEvaluator.resident_bytes) to within ±25%,
-    so a drift in what the evaluator keeps resident can't silently flip
-    workloads onto the wrong backend or back into OOM territory."""
-    from mira_tpu.nifs.vanilla import fold_eval_est_bytes
+def test_fold_evaluator_matches_native_row_vm(circuit_cls):
+    """The multi-point device evaluator (polynomial/fold_evaluator.py, the
+    GPU fold_eval route) equals the native row VM (the CPU route) at every
+    interior fold point, on two different satisfied traces."""
+    import numpy as np
 
-    S, _advice, _ck = setup(circuit_cls)
-    d = S.get_degree_for_folding() - 1
-    est = fold_eval_est_bytes(S, d)
-    pev = S._pallas_fold_evaluator()
-    actual = pev.resident_bytes(max(d - 1, 1))  # steady-state interior points
-    assert abs(est - actual) <= 0.25 * actual, (
-        f"{circuit_cls.__name__}: estimate {est} vs actual {actual} "
-        f"({est / actual:.2f}x) — correct fold_eval_est_bytes"
-    )
+    from mira_tpu.polynomial.native_evaluator import available
+
+    if not available():
+        pytest.skip("no native toolchain")
+    S, advice1, ck = setup(circuit_cls, seed=1)
+    _S, advice2, _ck = setup(circuit_cls, seed=2)
+    nrow = 1 << S.k
+    lf = S.lf
+
+    def cols(advice):
+        flat = []
+        for col in advice:
+            flat.extend(col + [0] * (nrow - len(col)))
+        return (lf.encode(flat),)
+
+    W1, W2 = cols(advice1), cols(advice2)
+    rng = random.Random(9)
+    n_ch = S.num_challenges + 1
+    ch1 = [rng.randrange(S.modulus) for _ in range(n_ch)]
+    ch2 = [rng.randrange(S.modulus) for _ in range(n_ch)]
+    js = [1, 2, 3]
+    got = S._fold_evaluator().fold_eval_multi(W1, W2, js, ch1, ch2)
+    want = S._native_fold_evaluator().fold_eval_multi(W1, W2, js, ch1, ch2)
+    assert np.array_equal(np.asarray(got), np.asarray(want))
 
 
 @pytest.mark.parametrize("circuit_cls", [TwoGateCircuit])
 def test_decider_eval_via_fold_evaluator_matches_column(circuit_cls):
-    """The decider's gate evaluation now rides the prover's multi-point
-    fold evaluator at j=0 (plonk/structure._eval_full): the homogeneous
+    """On the GPU route the decider's gate evaluation rides the prover's
+    multi-point fold evaluator at j=0 (plonk/structure._eval_full): the homogeneous
     expression at u=1 must equal the compressed one on every row, and the
     j=0 homogeneous evaluation at (challenges, u) must match the column
     evaluator — pins the u=1 identity the routing relies on."""
@@ -417,7 +417,7 @@ def test_decider_eval_via_fold_evaluator_matches_column(circuit_cls):
     rng = random.Random(5)
     challenges = [rng.randrange(S.modulus) for _ in range(S.num_challenges)]
 
-    pev = S._pallas_fold_evaluator()
+    pev = S._fold_evaluator()
     for which, ch in (
         ("compressed", challenges + [1]),
         ("homogeneous", challenges + [rng.randrange(S.modulus)]),

@@ -1,7 +1,6 @@
 """Multi-chip (virtual 8-device CPU mesh) vs single-chip equality —
 the substitute for distributed tests per SURVEY.md §4."""
 
-import os
 import random
 
 import jax
@@ -59,7 +58,7 @@ def test_sharded_msm_matches_host():
     ops = jacobian_ops("bn254")
     sc = encode_scalars(scalars, BN254_G1.scalar_modulus)
     enc = ops.encode_points(pts)
-    out = sharded_msm(sc, enc, BN254_G1, mesh, method="lane")
+    out = sharded_msm(sc, enc, BN254_G1, mesh, method="xla")
     got = ops.decode_points(tuple(c[None] for c in out))[0]
     assert got == msm_host(scalars, pts)
 
@@ -67,7 +66,7 @@ def test_sharded_msm_matches_host():
 @needs_8_devices
 def test_sharded_msm_native_matches_host():
     """CPU-mesh default: per-shard native C++ Pippenger via pure_callback +
-    the same all-gather/tree-reduction mesh program as the TPU path."""
+    the same all-gather/tree-reduction mesh program as the GPU path."""
     from mira_tpu.ops.native_msm import available
 
     if not available():
@@ -87,24 +86,19 @@ def test_sharded_msm_native_matches_host():
     assert got == msm_host(scalars, pts)
 
 
-@needs_8_devices
-@pytest.mark.slow
-@pytest.mark.skipif(
-    not os.environ.get("MIRA_RUN_SLOW"),
-    reason="~3min in CPU interpret mode; set MIRA_RUN_SLOW=1",
-)
-def test_sharded_msm_pippenger_matches_host():
-    """Default multi-chip route: per-shard Pippenger Pallas kernel (interpret
-    mode on CPU) + all-gather tree reduction."""
-    mesh = make_mesh(8)
+@pytest.mark.gpu
+def test_sharded_msm_cuda_matches_host(gpu):
+    """GPU route: per-shard CUDA bucket Pippenger + all-gather tree
+    reduction, on every visible card."""
+    mesh = make_mesh()
     rng = random.Random(3)
-    n = 32
+    n = 32 * mesh.devices.size
     pts = [AffinePoint.random(BN254_G1, rng) for _ in range(n)]
     scalars = [rng.randrange(BN254_G1.scalar_modulus) for _ in range(n)]
     ops = jacobian_ops("bn254")
     sc = encode_scalars(scalars, BN254_G1.scalar_modulus)
     enc = ops.encode_points(pts)
-    out = sharded_msm(sc, enc, BN254_G1, mesh, block=4)
+    out = sharded_msm(sc, enc, BN254_G1, mesh, method="cuda")
     got = ops.decode_points(tuple(c[None] for c in out))[0]
     assert got == msm_host(scalars, pts)
 
